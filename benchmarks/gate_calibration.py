@@ -1,7 +1,7 @@
 """Calibrate discriminative quality bands for the model gates.
 
-VERDICT r4 next-5: four of five families gated on an easy p_in=0.85 SBM
-at f1 > 0.7 (near-saturated) — regressions can hide. This script runs
+Four of five families were gated on an easy p_in=0.85 SBM at f1 > 0.7
+(near-saturated), where regressions can hide. This script runs
 each family on its HARD synthetic (near-threshold SBM for community
 models; degree-octile flight for struc2vec) over seeds, plus a PLANTED
 REGRESSION run (learning rate x10) per family, so the committed gates
@@ -25,10 +25,10 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import numpy as np  # noqa: F401
 
-    from graphembedding_tpu.data.datasets import (
+    from graphembedding.data.datasets import (
         synthetic_flight_hard, synthetic_wiki_hard)
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import (
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import (
         LINE, SDNE, DeepWalk, Node2Vec, Struc2Vec)
 
     def f1(ds, emb):

@@ -3,24 +3,19 @@
 Measures walked-edges/s and trained-pairs/s of the SHARDED paths at
 1..N devices and reports efficiency vs linear scaling, as JSONL.
 
-What a virtual CPU mesh can and cannot measure (round-3 revision)
------------------------------------------------------------------
-On this build environment only one real TPU chip is reachable, so the
-multi-device rows run on the virtual CPU mesh
-(`--xla_force_host_platform_device_count`). The N virtual devices
-TIME-SHARE the host's physical cores: once aggregate compute saturates
-the cores (~4 here), raw weak-scaling efficiency is bounded by
+What a virtual CPU mesh can and cannot measure
+----------------------------------------------
+On a virtual CPU mesh (`--xla_force_host_platform_device_count`) the N
+virtual devices TIME-SHARE the host's physical cores: once aggregate
+compute saturates the cores, raw weak-scaling efficiency is bounded by
 cores/devices no matter how good the communication is — a property of
-the host, not of the sharded design. (The round-2 harness reported
-0.73 at 8 devices only because its single-run timing inflated the n=1
-baseline ~7x; measured properly, raw eff at 8 devices on 4 cores is
-core-contention-bound.)
+the host, not of the sharded design.
 
 So this harness reports BOTH:
 
 - `scaling_efficiency` (raw): rate(n) / (n * rate(1)). Honest but
-  host-bound above n ≈ physical cores; on a real slice each device
-  has its own chip and this number is expected at or above...
+  host-bound above n ≈ physical cores; on real cards each device is
+  its own chip.
 - `comm_efficiency`: t_nocomm(n) / t_full(n) at the SAME n — the same
   per-device program with cross-device exchanges removed (training:
   no mid-chunk replica syncs; walks: routing skipped, a
@@ -32,9 +27,8 @@ So this harness reports BOTH:
 
 Weak scaling (per-device work constant) is the default; pass
 `--scaling strong` to hold TOTAL work constant and report speedup
-instead. On a real pod slice the same harness runs unchanged:
-`python -m benchmarks.scaling --devices 0` on a host with
-`jax.distributed` initialized.
+instead. On real cards the same harness runs unchanged:
+`python -m benchmarks.scaling --devices 0`.
 """
 
 from __future__ import annotations
@@ -76,11 +70,11 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from graphembedding_tpu.data import load_dataset
-    from graphembedding_tpu.ops.walk import simulate_walks
-    from graphembedding_tpu.parallel.mesh import make_mesh
-    from graphembedding_tpu.parallel.sgns import sharded_sgns_chunk
-    from graphembedding_tpu.train.skipgram import (
+    from graphembedding.data import load_dataset
+    from graphembedding.ops.walk import simulate_walks
+    from graphembedding.parallel.mesh import make_mesh
+    from graphembedding.parallel.sgns import sharded_sgns_chunk
+    from graphembedding.train.skipgram import (
         corpus_counts,
         negative_table,
     )
@@ -154,7 +148,7 @@ def main():
         print(json.dumps(row), flush=True)
 
     # row-sharded mode (one global table, exchange per step) at full n
-    from graphembedding_tpu.parallel.rowshard import rowsharded_sgns_chunk
+    from graphembedding.parallel.rowshard import rowsharded_sgns_chunk
 
     n = sizes[-1]
     mesh = make_mesh((n, 1), devices=jax.devices()[:n])
@@ -201,10 +195,10 @@ def main():
     # BASELINE edges/s scaling deliverable. The engine is built and
     # partitioned ONCE per n (DistributedWalker); the timed region is
     # exactly the steady-state jitted walk call, as in real use.
-    from graphembedding_tpu.parallel.walks import DistributedWalker
+    from graphembedding.parallel.walks import DistributedWalker
 
     engines = {
-        "": {},  # plain all_gather engine (round-1..3 shipped path)
+        "": {},  # plain all_gather engine (the default path)
         "_a2a": {"exchange": "a2a"},  # crossers-only exact exchange
     }
     per_dev = args.walkers
@@ -277,7 +271,7 @@ def main():
             if crossed_full is not None:
                 # measured exchange occupancy: rows actually crossing
                 # per shard per round vs the n*(bcap+1) dense frame —
-                # the wire-byte accounting inputs (RESULTS.md r4)
+                # the wire-byte accounting inputs
                 row["crossed_rows_total"] = crossed_full
                 if rounds_full:
                     row["crossed_per_shard_round"] = round(

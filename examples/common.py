@@ -17,8 +17,8 @@ import time
 # run examples straight from a checkout without installing
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from graphembedding_tpu.data import load_dataset
-from graphembedding_tpu.eval.classify import Classifier
+from graphembedding.data import load_dataset
+from graphembedding.eval.classify import Classifier
 
 
 def make_parser(name: str, dataset_default: str) -> argparse.ArgumentParser:
@@ -50,7 +50,7 @@ def mesh_from_args(args):
     """None, or a (data, model) Mesh parsed from --mesh."""
     if not getattr(args, "mesh", None):
         return None
-    from graphembedding_tpu.parallel import make_mesh
+    from graphembedding.parallel import make_mesh
 
     parts = str(args.mesh).lower().split("x")
     shape = (int(parts[0]), int(parts[1]) if len(parts) > 1 else 1)

@@ -1,13 +1,15 @@
 """DeepWalk under `jax.distributed` — the multi-host launch example.
 
-Run ONE copy of this script per host/process. On a real TPU pod slice
-JAX discovers the topology itself:
+Run ONE copy of this script per process, and pass the coordinator
+explicitly. On GPUs each process drives its own card(s) — e.g. four
+processes on a 4-card host, one card each:
 
-    # on every host of the slice
-    python examples/deepwalk_multihost.py
+    CUDA_VISIBLE_DEVICES=$i python examples/deepwalk_multihost.py \
+        --coordinator localhost:9955 --num-processes 4 --process-id $i
 
-On CPUs (or for a local smoke test), pass the coordinator explicitly —
-e.g. two local processes with two virtual devices each:
+(One process can also drive all four cards with `mesh=` and no
+`jax.distributed` at all; that is the simpler form on one host.) For a
+local CPU smoke test, two processes with two virtual devices each:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=2 \
     JAX_PLATFORMS=cpu \
@@ -38,7 +40,7 @@ import json
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (omit on TPU pods)")
+                   help="host:port of process 0")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--nodes", type=int, default=120)
@@ -56,7 +58,7 @@ def main():
     p.add_argument("--json", action="store_true")
     args = p.parse_args()
 
-    from graphembedding_tpu.parallel.mesh import init_distributed
+    from graphembedding.parallel.mesh import init_distributed
 
     kw = {}
     if args.coordinator:
@@ -67,10 +69,10 @@ def main():
 
     import jax
 
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk
-    from graphembedding_tpu.parallel.mesh import make_mesh
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk
+    from graphembedding.parallel.mesh import make_mesh
 
     # same seed on every process -> identical graph/corpus everywhere
     ds = synthetic_wiki(num_nodes=args.nodes, num_classes=3,
@@ -89,7 +91,7 @@ def main():
             block_walks=8 * len(jax.devices()),
             parallel_mode=args.mode)
 
-    # evaluation is host-side sklearn; every process holds the full
+    # evaluation is host-side numpy; every process holds the full
     # table (dp tables are replicated) — rank 0 reports
     if jax.process_index() == 0:
         res = Classifier(m.get_embeddings()).split_train_evaluate(

@@ -6,7 +6,7 @@ DeepWalk(walk_length=10, num_walks=80), train(window_size=5, iter=3).
 
 from common import mesh_from_args, run
 
-from graphembedding_tpu.models import DeepWalk
+from graphembedding.models import DeepWalk
 
 
 def build_and_train(ds, args):

@@ -11,7 +11,7 @@ real edgelist is present (the reference mount was empty all round).
 
 from common import make_parser, mesh_from_args, run
 
-from graphembedding_tpu.models import LINE
+from graphembedding.models import LINE
 
 
 def build_and_train(ds, args):

@@ -6,7 +6,7 @@ train(batch_size=1024, epochs=50).
 
 from common import mesh_from_args, run
 
-from graphembedding_tpu.models import LINE
+from graphembedding.models import LINE
 
 
 def build_and_train(ds, args):

@@ -6,7 +6,7 @@ p=0.25, q=4), train(window_size=5, iter=3).
 
 from common import mesh_from_args, run
 
-from graphembedding_tpu.models import Node2Vec
+from graphembedding.models import Node2Vec
 
 
 def build_and_train(ds, args):

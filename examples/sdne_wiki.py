@@ -6,7 +6,7 @@ train(batch_size=3000, epochs=40).
 
 from common import mesh_from_args, run
 
-from graphembedding_tpu.models import SDNE
+from graphembedding.models import SDNE
 
 
 def build_and_train(ds, args):

@@ -7,7 +7,7 @@ train default; brazil-airports edgelist, 4 activity-quartile classes.
 
 from common import mesh_from_args, run
 
-from graphembedding_tpu.models import Struc2Vec
+from graphembedding.models import Struc2Vec
 
 
 def build_and_train(ds, args):
@@ -18,10 +18,10 @@ def build_and_train(ds, args):
     # reference-parity CLI surface untouched
     model = Struc2Vec(ds.graph, walk_length=10, num_walks=80,
                       workers=4, verbose=40, seed=args.seed,
-                      dtw_mode=os.environ.get("GE_TPU_DTW_MODE",
+                      dtw_mode=os.environ.get("GE_DTW_MODE",
                                               "fastdtw"))
     trainer = getattr(args, "trainer", "block")
-    # the dense expected-SGNS trainer matches hs=1 quality (RESULTS.md)
+    # the dense expected-SGNS trainer matches hs=1 quality
     # but trains the SGNS objective — switch hs off when selected
     model.train(embed_size=args.embed_size, window_size=5, iter=5,
                 mesh=mesh_from_args(args), trainer=trainer,

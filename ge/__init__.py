@@ -2,14 +2,14 @@
 
 The reference is imported as `from ge import DeepWalk` (its package
 root re-exports the model classes — `ge/__init__.py [U]`). This shim
-makes that line work VERBATIM against the TPU framework, so a
+makes that line work VERBATIM against this framework, so a
 migrating script needs zero changes; new code should import
-`graphembedding_tpu` directly. Do not install this package alongside
+`graphembedding` directly. Do not install this package alongside
 the original reference in one environment — the module name is shared
 by design.
 """
 
-from graphembedding_tpu import (  # noqa: F401
+from graphembedding import (  # noqa: F401
     LINE,
     SDNE,
     DeepWalk,

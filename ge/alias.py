@@ -1,6 +1,6 @@
-"""`ge.alias` shim -> graphembedding_tpu.ops.alias."""
+"""`ge.alias` shim -> graphembedding.ops.alias."""
 
-from graphembedding_tpu.ops.alias import (  # noqa: F401
+from graphembedding.ops.alias import (  # noqa: F401
     alias_sample,
     create_alias_table,
 )

@@ -1,6 +1,6 @@
-"""`ge.classify` shim -> graphembedding_tpu.eval.classify."""
+"""`ge.classify` shim -> graphembedding.eval.classify."""
 
-from graphembedding_tpu.eval.classify import (  # noqa: F401
+from graphembedding.eval.classify import (  # noqa: F401
     Classifier,
     TopKRanker,
     read_node_label,

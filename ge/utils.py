@@ -1,6 +1,6 @@
-"""`ge.utils` shim -> graphembedding_tpu.utils.vocab."""
+"""`ge.utils` shim -> graphembedding.utils.vocab."""
 
-from graphembedding_tpu.utils.vocab import (  # noqa: F401
+from graphembedding.utils.vocab import (  # noqa: F401
     partition_dict,
     partition_list,
     partition_num,

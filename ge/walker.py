@@ -1,6 +1,6 @@
-"""`ge.walker` shim -> graphembedding_tpu.walker."""
+"""`ge.walker` shim -> graphembedding.walker."""
 
-from graphembedding_tpu.walker import (  # noqa: F401
+from graphembedding.walker import (  # noqa: F401
     BiasedWalker,
     RandomWalker,
 )

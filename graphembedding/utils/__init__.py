@@ -1,0 +1,41 @@
+from graphembedding.utils.debug import (
+    checked,
+    debug_guard,
+    validate_graph,
+    validate_walks,
+)
+from graphembedding.utils.io import (
+    load_npz,
+    load_word2vec_format,
+    save_npz,
+    save_word2vec_format,
+)
+from graphembedding.utils.simquery import (
+    most_similar,
+    similarity,
+)
+from graphembedding.utils.vocab import (
+    Vocab,
+    partition_dict,
+    partition_list,
+    partition_num,
+    preprocess_nxgraph,
+)
+
+__all__ = [
+    "Vocab",
+    "most_similar",
+    "similarity",
+    "save_word2vec_format",
+    "load_word2vec_format",
+    "save_npz",
+    "load_npz",
+    "preprocess_nxgraph",
+    "partition_dict",
+    "partition_list",
+    "partition_num",
+    "validate_graph",
+    "validate_walks",
+    "checked",
+    "debug_guard",
+]

@@ -4,7 +4,7 @@ The reference mount `/root/reference/` was EMPTY in rounds 1–2
 (SURVEY.md §0 documents the evidence). Everything quality-related is
 therefore anchored to SURVEY's reconstruction and synthetic datasets.
 This script is the one-command re-baseline for the session where the
-mount appears (VERDICT r1 "next round" item 5):
+mount appears:
 
 1. **Mount detection** — file count + expected layout (`ge/`, `data/`,
    `examples/`). Empty mount → one JSON status line, exit 0.
@@ -139,7 +139,7 @@ def copycheck(root: str, repo: str) -> list:
                     os.path.join(dirpath, f)
                 )
     results = []
-    pkg = os.path.join(repo, "graphembedding_tpu")
+    pkg = os.path.join(repo, "graphembedding")
     for dirpath, _, files in os.walk(pkg):
         for f in files:
             if not f.endswith(".py"):
@@ -164,10 +164,10 @@ def copycheck(root: str, repo: str) -> list:
 def run_baseline(quick: bool = False) -> list:
     """BASELINE.md protocol: canonical configs, seed-0 split,
     tr_frac 0.8, per-phase wall-clock. `load_dataset` picks real
-    reference data when the mount (or GE_TPU_REFERENCE_ROOT) has it."""
-    from graphembedding_tpu.data import load_dataset
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import (
+    reference data when the mount (or GE_REFERENCE_ROOT) has it."""
+    from graphembedding.data import load_dataset
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import (
         LINE,
         SDNE,
         DeepWalk,
@@ -254,7 +254,7 @@ def write_report(out: str, status: dict, citations: dict,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--root", default=os.environ.get(
-        "GE_TPU_REFERENCE_ROOT", "/root/reference"))
+        "GE_REFERENCE_ROOT", "/root/reference"))
     ap.add_argument("--out", default="PARITY_RUN")
     ap.add_argument("--quick", action="store_true",
                     help="reduced hyperparameters (mock-mount tests)")
@@ -266,7 +266,7 @@ def main(argv=None) -> int:
         print(json.dumps({"mount": "empty", **status}))
         return 0
 
-    os.environ["GE_TPU_REFERENCE_ROOT"] = args.root
+    os.environ["GE_REFERENCE_ROOT"] = args.root
     citations = spot_check_citations(args.root)
     copies = copycheck(args.root, os.path.dirname(
         os.path.abspath(__file__)))

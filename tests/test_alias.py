@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from graphembedding_tpu.ops.alias import (
+from graphembedding.ops.alias import (
     alias_sample_host,
     build_alias_table,
     build_row_alias,
@@ -62,7 +62,7 @@ def test_row_alias_matches_per_row():
 
 
 def test_native_alias_matches_numpy():
-    from graphembedding_tpu import native
+    from graphembedding import native
 
     if not native.available():
         pytest.skip("native lib unavailable")

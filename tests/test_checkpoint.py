@@ -2,15 +2,15 @@ import os
 
 import numpy as np
 
-from graphembedding_tpu.train.skipgram import SkipGramConfig, SkipGramTrainer
-from graphembedding_tpu.utils.checkpoint import (
+from graphembedding.train.skipgram import SkipGramConfig, SkipGramTrainer
+from graphembedding.utils.checkpoint import (
     cache_artifact,
     content_key,
     load_artifact,
     load_state,
     save_state,
 )
-from graphembedding_tpu.utils.metrics import MetricsLogger
+from graphembedding.utils.metrics import MetricsLogger
 
 
 def test_save_load_state_roundtrip(tmp_path):
@@ -83,8 +83,8 @@ def test_trainer_metrics_integration(tmp_path):
 
 
 def test_line_checkpoint_resume(tmp_path):
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import LINE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import LINE
 
     ds = synthetic_wiki(num_nodes=80, avg_degree=6)
     ckpt = str(tmp_path / "line")
@@ -105,8 +105,8 @@ def test_line_checkpoint_resume(tmp_path):
 
 
 def test_sdne_checkpoint_resume(tmp_path):
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import SDNE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import SDNE
 
     ds = synthetic_wiki(num_nodes=60, avg_degree=5)
     ckpt = str(tmp_path / "sdne")
@@ -134,8 +134,8 @@ def test_try_restore_sharded_roundtrip(tmp_path):
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from graphembedding_tpu.parallel.mesh import make_mesh
-    from graphembedding_tpu.utils.checkpoint import (
+    from graphembedding.parallel.mesh import make_mesh
+    from graphembedding.utils.checkpoint import (
         save_state,
         try_restore_sharded,
     )
@@ -164,14 +164,14 @@ def test_try_restore_sharded_roundtrip(tmp_path):
 
 
 def test_try_restore_sharded_missing_dir(tmp_path):
-    from graphembedding_tpu.utils.checkpoint import try_restore_sharded
+    from graphembedding.utils.checkpoint import try_restore_sharded
 
     assert try_restore_sharded(str(tmp_path / "nope"), {"a": 1}) is None
 
 
 def test_hs_trainer_checkpoint_resume_and_metrics(tmp_path):
     """HSTrainer mirrors SkipGramTrainer's checkpoint/metrics hooks."""
-    from graphembedding_tpu.train.hsoftmax import HSTrainer
+    from graphembedding.train.hsoftmax import HSTrainer
 
     rng = np.random.default_rng(0)
     walks = rng.integers(0, 30, (128, 6)).astype(np.int32)
@@ -201,8 +201,8 @@ def test_hs_trainer_checkpoint_resume_and_metrics(tmp_path):
 
 def test_deepwalk_model_checkpoint_kwargs(tmp_path):
     """checkpoint_dir/-every thread through the model-layer train()."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=60, num_classes=3, avg_degree=6,
                         seed=0)
@@ -224,8 +224,8 @@ def test_sdne_sparse_checkpoint_resume_large_v(tmp_path):
     interrupted run resumed from its Orbax checkpoint reproduces the
     uninterrupted run's remaining per-epoch losses exactly (the sparse
     path is deterministic and Adam state is checkpointed)."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import SDNE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import SDNE
 
     ds = synthetic_wiki(num_nodes=10_000, num_classes=4, avg_degree=4,
                         seed=11)
@@ -255,9 +255,9 @@ def test_sdne_sparse_mesh_checkpoint_resume(tmp_path):
     path (replicated params checkpoint + restore)."""
     import jax
 
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import SDNE
-    from graphembedding_tpu.parallel.mesh import make_mesh
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import SDNE
+    from graphembedding.parallel.mesh import make_mesh
 
     ds = synthetic_wiki(num_nodes=80, num_classes=3, avg_degree=6,
                         seed=2)

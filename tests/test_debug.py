@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphembedding_tpu.graph import Graph
-from graphembedding_tpu.utils.debug import (
+from graphembedding.graph import Graph
+from graphembedding.utils.debug import (
     checked,
     debug_guard,
     validate_graph,
@@ -84,7 +84,7 @@ class TestValidateWalks:
 
 class TestChecked:
     def test_walk_kernel_in_bounds(self):
-        from graphembedding_tpu.ops.walk import uniform_walks
+        from graphembedding.ops.walk import uniform_walks
 
         g = _ring()
         dg = g.device
@@ -96,7 +96,7 @@ class TestChecked:
         validate_walks(np.asarray(walks), g.num_nodes)
 
     def test_sgns_chunk_in_bounds(self):
-        from graphembedding_tpu.train.skipgram import sgns_block_chunk
+        from graphembedding.train.skipgram import sgns_block_chunk
 
         V, D, L = 16, 8, 6
         rng = np.random.default_rng(0)
@@ -142,11 +142,11 @@ def test_debug_guard_restores_config():
 
 
 def test_env_gated_validation(monkeypatch):
-    """GE_TPU_VALIDATE wires the validators into Graph + trainers."""
-    monkeypatch.setenv("GE_TPU_VALIDATE", "1")
+    """GE_VALIDATE wires the validators into Graph + trainers."""
+    monkeypatch.setenv("GE_VALIDATE", "1")
     g = _ring()  # constructs cleanly under validation
 
-    from graphembedding_tpu.train.skipgram import (
+    from graphembedding.train.skipgram import (
         SkipGramConfig,
         SkipGramTrainer,
     )

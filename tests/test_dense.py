@@ -2,7 +2,7 @@
 
 The closed-form full-batch factorization of the SGNS objective: exact
 expected co-occurrence weights (dynamic-window expectation), rank-1
-expected negatives, Adam on MXU matmuls.
+expected negatives, Adam on dense matmuls.
 """
 
 import numpy as np
@@ -11,14 +11,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from graphembedding_tpu.data.datasets import (
+from graphembedding.data.datasets import (
     synthetic_wiki,
     synthetic_wiki_hard,
 )
-from graphembedding_tpu.eval.classify import Classifier
-from graphembedding_tpu.models import DeepWalk
-from graphembedding_tpu.ops.walk import simulate_walks
-from graphembedding_tpu.train.dense import (
+from graphembedding.eval.classify import Classifier
+from graphembedding.models import DeepWalk
+from graphembedding.ops.walk import simulate_walks
+from graphembedding.train.dense import (
     DenseSGNSTrainer,
     cooccurrence,
 )
@@ -87,7 +87,7 @@ def test_line_dense_trainer():
     """LINE trainer='dense': closed-form expected objective — first
     order must separate communities at least as well as the sampled
     second-order path on the small community graph."""
-    from graphembedding_tpu.models.line import LINE
+    from graphembedding.models.line import LINE
 
     ds = synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                         seed=5)
@@ -106,8 +106,8 @@ def test_struc2vec_dense_trainer_quality(tmp_path):
     SGNS quality gap (sampled ~0.70 on flight-brazil vs hs=1's ~0.93;
     dense measures 0.89/0.96/0.93 across seeds 1-3 — the deficit was
     sampling noise, not the objective). Gate one seed here."""
-    from graphembedding_tpu.data.datasets import synthetic_flight
-    from graphembedding_tpu.models import Struc2Vec
+    from graphembedding.data.datasets import synthetic_flight
+    from graphembedding.models import Struc2Vec
 
     ds = synthetic_flight()
     m = Struc2Vec(ds.graph, walk_length=10, num_walks=80,

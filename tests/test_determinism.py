@@ -8,9 +8,9 @@ run-to-run. This is the property the reference could never offer
 import jax
 import numpy as np
 
-from graphembedding_tpu.data.datasets import synthetic_wiki
-from graphembedding_tpu.models import DeepWalk, Node2Vec
-from graphembedding_tpu.ops.walk import simulate_walks
+from graphembedding.data.datasets import synthetic_wiki
+from graphembedding.models import DeepWalk, Node2Vec
+from graphembedding.ops.walk import simulate_walks
 
 
 def _ds():

@@ -44,7 +44,7 @@ def test_plot_embeddings_writes_png(tmp_path):
         from common import plot_embeddings
     finally:
         sys.path.remove(EX_DIR)
-    from graphembedding_tpu.data.datasets import synthetic_wiki
+    from graphembedding.data.datasets import synthetic_wiki
 
     ds = synthetic_wiki(num_nodes=40, num_classes=3, seed=1)
     rng = np.random.default_rng(0)

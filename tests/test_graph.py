@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from graphembedding_tpu.graph import Graph
-from graphembedding_tpu.utils.vocab import Vocab
+from graphembedding.graph import Graph
+from graphembedding.utils.vocab import Vocab
 
 
 def toy_graph(directed=True):
@@ -92,7 +92,7 @@ def test_from_edgelist_csv_and_csv_labels(tmp_path):
     g = Graph.from_edgelist(str(e), directed=False)
     assert g.num_nodes == 3 and g.num_edges == 6  # symmetrized
 
-    from graphembedding_tpu.data.datasets import _labels_from_file
+    from graphembedding.data.datasets import _labels_from_file
 
     lab = tmp_path / "group-edges.csv"
     lab.write_text("1,5\n1,7\n2,5\n3,9\n")

@@ -3,7 +3,7 @@ import heapq
 import numpy as np
 import pytest
 
-from graphembedding_tpu.train.hsoftmax import (
+from graphembedding.train.hsoftmax import (
     HSTrainer,
     build_huffman,
 )
@@ -68,9 +68,9 @@ def test_deepwalk_hs_model_path():
     objective through the model API."""
     import numpy as np
 
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                         p_in=0.85, seed=3)
@@ -90,7 +90,7 @@ def test_hs_sparse_cap_matches_dense():
     import jax
     import jax.numpy as jnp
 
-    from graphembedding_tpu.train.hsoftmax import (
+    from graphembedding.train.hsoftmax import (
         build_huffman,
         hs_block_chunk,
     )

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from graphembedding_tpu.utils.io import (
+from graphembedding.utils.io import (
     load_npz,
     load_word2vec_format,
     save_npz,
@@ -68,8 +68,8 @@ def test_gensim_compat(tmp_path):
 
 def test_model_embeddings_roundtrip(tmp_path):
     """End-to-end: a trained model's dict survives the text format."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=60, num_classes=3, avg_degree=6, seed=0)
     m = DeepWalk(ds.graph, walk_length=5, num_walks=4)

@@ -7,9 +7,9 @@ micro-F1, SURVEY.md §5) at a size that runs in seconds.
 import numpy as np
 import pytest
 
-from graphembedding_tpu.data.datasets import synthetic_flight, synthetic_wiki
-from graphembedding_tpu.eval.classify import Classifier
-from graphembedding_tpu.models import LINE, SDNE, DeepWalk, Node2Vec, Struc2Vec
+from graphembedding.data.datasets import synthetic_flight, synthetic_wiki
+from graphembedding.eval.classify import Classifier
+from graphembedding.models import LINE, SDNE, DeepWalk, Node2Vec, Struc2Vec
 
 
 @pytest.fixture(scope="module")
@@ -129,9 +129,9 @@ def test_deepwalk_hard_sbm_gate():
     micro-F1 at p_in=0.45: [0.725, 0.667, 0.650] (2026-08-20). Gate:
     every seed >= 0.55, mean >= 0.60 — a quality regression of a few
     points fails it, unlike the saturated gates."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki_hard
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki_hard
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk
 
     scores = []
     for seed in (0, 1):
@@ -163,12 +163,12 @@ def test_deepwalk_hard_sbm_gate():
 
 @pytest.fixture(scope="module")
 def hard_sbm():
-    from graphembedding_tpu.data.datasets import synthetic_wiki_hard
+    from graphembedding.data.datasets import synthetic_wiki_hard
     return synthetic_wiki_hard()
 
 
 def test_node2vec_hard_sbm_gate(hard_sbm):
-    from graphembedding_tpu.models import Node2Vec
+    from graphembedding.models import Node2Vec
     scores = []
     for seed in (0, 1):
         m = Node2Vec(hard_sbm.graph, walk_length=10, num_walks=20,
@@ -180,7 +180,7 @@ def test_node2vec_hard_sbm_gate(hard_sbm):
 
 
 def test_line_hard_sbm_gate(hard_sbm):
-    from graphembedding_tpu.models import LINE
+    from graphembedding.models import LINE
     scores = []
     for seed in (0, 1):
         m = LINE(hard_sbm.graph, embedding_size=64, order="second",
@@ -192,7 +192,7 @@ def test_line_hard_sbm_gate(hard_sbm):
 
 
 def test_sdne_hard_sbm_gate(hard_sbm):
-    from graphembedding_tpu.models import SDNE
+    from graphembedding.models import SDNE
     scores = []
     for seed in (0, 1):
         m = SDNE(hard_sbm.graph, hidden_size=[128, 64], seed=seed)
@@ -203,8 +203,8 @@ def test_sdne_hard_sbm_gate(hard_sbm):
 
 
 def test_struc2vec_hard_flight_gate(tmp_path):
-    from graphembedding_tpu.data.datasets import synthetic_flight_hard
-    from graphembedding_tpu.models import Struc2Vec
+    from graphembedding.data.datasets import synthetic_flight_hard
+    from graphembedding.models import Struc2Vec
     ds = synthetic_flight_hard()
     scores = []
     for seed in (0, 1):

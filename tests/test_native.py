@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from graphembedding_tpu import native
-from graphembedding_tpu.data.datasets import synthetic_flight
-from graphembedding_tpu.models import struc2vec as s2v
+from graphembedding import native
+from graphembedding.data.datasets import synthetic_flight
+from graphembedding.models import struc2vec as s2v
 
 
 pytestmark = pytest.mark.skipif(
@@ -49,8 +49,8 @@ def test_struc2vec_distances_thread_invariant():
     a single distance."""
     import numpy as np
 
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models.struc2vec import build_context_graph
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models.struc2vec import build_context_graph
 
     ds = synthetic_wiki(num_nodes=150, num_classes=3, avg_degree=7,
                         seed=2)
@@ -70,8 +70,8 @@ def test_context_graph_build_at_5k_nodes():
     10^5 nodes; this guards the numpy/C++ path at CI-feasible scale)."""
     import time
 
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models.struc2vec import (
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models.struc2vec import (
         build_context_graph,
         build_layer_csr,
     )
@@ -108,8 +108,8 @@ def test_native_fastdtw_matches_python_and_bounds_exact():
     # windows can only overestimate), and == exact for short sequences
     # (base case IS exact)
     import numpy as np
-    from graphembedding_tpu import native
-    from graphembedding_tpu.models import struc2vec as s2v
+    from graphembedding import native
+    from graphembedding.models import struc2vec as s2v
 
     rng = np.random.default_rng(3)
     for _ in range(50):
@@ -130,7 +130,7 @@ def test_native_fastdtw_matches_python_and_bounds_exact():
 def test_struc2vec_distances_dtw_modes():
     # the batch pipeline honors dtw_mode; fastdtw >= exact cumulative
     import numpy as np
-    from graphembedding_tpu import native
+    from graphembedding import native
 
     # small random graph CSR (symmetrized by construction: a cycle + chords)
     V = 40

@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphembedding_tpu.graph import Graph
-from graphembedding_tpu.parallel.mesh import make_mesh
-from graphembedding_tpu.parallel.sgns import sharded_sgns_chunk
-from graphembedding_tpu.parallel.walks import (
+from graphembedding.graph import Graph
+from graphembedding.parallel.mesh import make_mesh
+from graphembedding.parallel.sgns import sharded_sgns_chunk
+from graphembedding.parallel.walks import (
     partition_csr,
     simulate_walks_distributed,
 )
@@ -122,8 +122,10 @@ def test_sharded_sgns_runs_and_learns():
 
 
 def test_dryrun_multichip():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     from __graft_entry__ import dryrun_multichip
 
     dryrun_multichip(len(jax.devices()))
@@ -133,7 +135,7 @@ def test_rowshard_fetch_and_push():
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from graphembedding_tpu.parallel.rowshard import fetch_rows, push_grads
+    from graphembedding.parallel.rowshard import fetch_rows, push_grads
 
     devs = len(jax.devices())
     mesh = make_mesh((devs, 1))
@@ -170,7 +172,7 @@ def test_rowshard_fetch_and_push():
 
 
 def test_rowsharded_sgns_runs_and_learns():
-    from graphembedding_tpu.parallel.rowshard import rowsharded_sgns_chunk
+    from graphembedding.parallel.rowshard import rowsharded_sgns_chunk
 
     devs = len(jax.devices())
     mesh = make_mesh((devs, 1))
@@ -224,9 +226,9 @@ def test_rowsharded_sgns_runs_and_learns():
 def test_deepwalk_trains_over_mesh():
     """Model API multi-chip path: DeepWalk(...).train(mesh=...) via
     DistributedSkipGramTrainer (rowshard mode), end to end."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                         seed=5)
@@ -245,9 +247,9 @@ def test_deepwalk_dp_mode_quality_gate():
     the >= 0.9 community-test gate (VERDICT r1 item 10). Replica
     staleness was the round-1 gap (0.58 at once-per-chunk sync); the
     dp_sync_every=4 default closes it."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                         seed=5)
@@ -263,10 +265,10 @@ def test_deepwalk_dp_mode_quality_gate():
 
 @pytest.mark.parametrize("mode", ["rowshard", "dp"])
 def test_distributed_trainer_checkpoint_resume(tmp_path, mode):
-    from graphembedding_tpu.parallel.trainer import (
+    from graphembedding.parallel.trainer import (
         DistributedSkipGramTrainer,
     )
-    from graphembedding_tpu.train.skipgram import SkipGramConfig
+    from graphembedding.train.skipgram import SkipGramConfig
 
     rng = np.random.default_rng(0)
     walks = rng.integers(0, 30, (128, 8)).astype(np.int32)
@@ -314,11 +316,11 @@ def test_distributed_trainer_checkpoint_resume(tmp_path, mode):
 
 
 def test_distributed_trainer_rejects_foreign_checkpoint(tmp_path):
-    from graphembedding_tpu.parallel.trainer import (
+    from graphembedding.parallel.trainer import (
         DistributedSkipGramTrainer,
     )
-    from graphembedding_tpu.train.skipgram import SkipGramConfig
-    from graphembedding_tpu.utils.checkpoint import save_state
+    from graphembedding.train.skipgram import SkipGramConfig
+    from graphembedding.utils.checkpoint import save_state
 
     ck = str(tmp_path / "ck")
     save_state(ck, {"w_in": np.zeros((4, 4), np.float32),
@@ -336,8 +338,8 @@ def test_distributed_trainer_rejects_foreign_checkpoint(tmp_path):
 
 def test_sharded_hs_runs_and_learns():
     """DP×TP hierarchical-softmax chunk separates two communities."""
-    from graphembedding_tpu.parallel.hsoftmax import sharded_hs_chunk
-    from graphembedding_tpu.train.hsoftmax import build_huffman
+    from graphembedding.parallel.hsoftmax import sharded_hs_chunk
+    from graphembedding.train.hsoftmax import build_huffman
 
     devs = len(jax.devices())
     shape = (devs // 2, 2) if devs % 2 == 0 and devs > 1 else (devs, 1)
@@ -384,9 +386,9 @@ def test_sharded_hs_runs_and_learns():
 def test_sharded_hs_matches_single_device_quality():
     """HSTrainer(mesh=...) reaches the single-device trainer's F1 on a
     small community graph (same walks, same budget)."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                         seed=5)
@@ -402,9 +404,9 @@ def test_sharded_hs_matches_single_device_quality():
 def test_line_trains_over_mesh():
     """LINE(...).train(mesh=...) — DP edge batches — reaches the
     single-device quality gate on a small community graph."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import LINE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import LINE
 
     ds = synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                         seed=5)
@@ -418,7 +420,7 @@ def test_line_trains_over_mesh():
 
 
 def test_line_mesh_rejects_model_axis():
-    from graphembedding_tpu.parallel.line import sharded_line_chunk
+    from graphembedding.parallel.line import sharded_line_chunk
 
     devs = len(jax.devices())
     if devs < 2:
@@ -432,8 +434,8 @@ def test_line_mesh_rejects_model_axis():
 def test_sdne_mesh_matches_single_device():
     """Row-sharded SDNE is EXACT: same per-epoch losses and embeddings
     as the single-device full-batch run (modulo f32 reduction order)."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import SDNE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import SDNE
 
     ds = synthetic_wiki(num_nodes=100, num_classes=3, avg_degree=8,
                         seed=3)
@@ -459,8 +461,8 @@ def test_sdne_sparse_mesh_matches_single_device():
     """Row-sharded train_sparse is EXACT: same per-epoch losses and
     embeddings as the single-device sparse run (modulo f32 reduction
     order) — the dense [V, V] A/L are never built on either path."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import SDNE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import SDNE
 
     ds = synthetic_wiki(num_nodes=100, num_classes=3, avg_degree=8,
                         seed=3)
@@ -485,8 +487,8 @@ def test_sdne_sparse_mesh_matches_single_device():
 def test_sdne_sparse_mesh_matches_dense_objective():
     """The sharded sparse loss equals the dense full-batch loss on the
     same params (the sparse rewrite is the identical objective)."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import SDNE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import SDNE
 
     ds = synthetic_wiki(num_nodes=70, num_classes=3, avg_degree=6,
                         seed=7)
@@ -502,8 +504,8 @@ def test_sdne_sparse_mesh_matches_dense_objective():
 
 
 def test_sdne_mesh_rejects_minibatch():
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import SDNE
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import SDNE
 
     ds = synthetic_wiki(num_nodes=100, num_classes=3, avg_degree=8,
                         seed=3)
@@ -516,9 +518,9 @@ def test_sdne_mesh_rejects_minibatch():
 def test_struc2vec_trains_over_mesh(tmp_path):
     """Struc2Vec's default hs=1 trainer composes with mesh= end to end
     (context graph on host, multilayer walks + sharded HS on devices)."""
-    from graphembedding_tpu.data.datasets import synthetic_flight
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import Struc2Vec
+    from graphembedding.data.datasets import synthetic_flight
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import Struc2Vec
 
     ds = synthetic_flight(num_nodes=60, seed=1)
     mesh = make_mesh((len(jax.devices()), 1))
@@ -535,10 +537,10 @@ def test_struc2vec_trains_over_mesh(tmp_path):
 def test_mesh_trainers_reject_tiny_corpora():
     """A corpus with fewer walks than data-axis devices must error
     loudly (a clamped dynamic_slice would silently duplicate rows)."""
-    from graphembedding_tpu.parallel.trainer import (
+    from graphembedding.parallel.trainer import (
         DistributedSkipGramTrainer,
     )
-    from graphembedding_tpu.train.hsoftmax import HSTrainer
+    from graphembedding.train.hsoftmax import HSTrainer
 
     devs = len(jax.devices())
     if devs < 2:
@@ -552,7 +554,7 @@ def test_mesh_trainers_reject_tiny_corpora():
 
 
 def test_line_mesh_rejects_ragged_batch():
-    from graphembedding_tpu.parallel.line import sharded_line_chunk
+    from graphembedding.parallel.line import sharded_line_chunk
 
     devs = len(jax.devices())
     if devs < 2:
@@ -639,7 +641,7 @@ def zipf_hub_graph(V=64, seed=0):
 def test_distributed_walks_zipf_hub_no_overflow():
     """VERDICT r1 item 2: Zipf-degree 8-shard run with overflow == 0 and
     token distribution matching the replicated single-chip engine."""
-    from graphembedding_tpu.ops.walk import simulate_walks
+    from graphembedding.ops.walk import simulate_walks
 
     g = zipf_hub_graph()
     mesh = make_mesh((len(jax.devices()), 1))
@@ -662,12 +664,12 @@ def test_distributed_walks_zipf_hub_no_overflow():
 def test_distributed_multilayer_matches_replicated():
     """Distributed struc2vec walks match the single-chip multilayer
     kernel's visit distribution on the same layer stack."""
-    from graphembedding_tpu.models.struc2vec import (
+    from graphembedding.models.struc2vec import (
         build_context_graph,
         build_layer_csr,
         multilayer_walks,
     )
-    from graphembedding_tpu.parallel.walks import (
+    from graphembedding.parallel.walks import (
         simulate_multilayer_walks_distributed,
     )
 
@@ -701,8 +703,8 @@ def test_batched_walk_engine_correctness():
     """Round-3 locality-batched engine (hop_batch > 0): every recorded
     hop is a real edge, no token holes, zero drops (backpressure), and
     visit distribution matches the plain per-hop engine."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.parallel.walks import DistributedWalker
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.parallel.walks import DistributedWalker
 
     ds = synthetic_wiki(num_nodes=200, num_classes=4, avg_degree=6,
                         seed=3)
@@ -734,7 +736,7 @@ def test_batched_walk_engine_zipf_backpressure():
     """Hub graph: the batched engine's backpressure must never drop a
     walker at send; overflow stays 0 where the plain engine's
     receiver-cap rule also holds."""
-    from graphembedding_tpu.parallel.walks import DistributedWalker
+    from graphembedding.parallel.walks import DistributedWalker
 
     g = zipf_hub_graph()
     mesh = make_mesh((len(jax.devices()), 1))
@@ -749,8 +751,8 @@ def test_locality_order_and_relabel():
     """RCM relabeling: valid permutation, and walks come back in the
     caller's original ids (every hop a real edge of the ORIGINAL
     graph)."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.parallel.walks import (
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.parallel.walks import (
         DistributedWalker,
         locality_order,
         relabel_graph,
@@ -780,9 +782,9 @@ def test_distributed_node2vec_rejection_dmax_safe():
     Dmax >> mean-degree graph with O(E/n) memory (no [Vp, Dmax]
     matrix), zero overflow, and a visit distribution matching the
     replicated exact kernel within the exact-vs-exact noise floor."""
-    from graphembedding_tpu.graph import Graph
-    from graphembedding_tpu.ops.walk import simulate_walks
-    from graphembedding_tpu.parallel.walks import DistributedWalker
+    from graphembedding.graph import Graph
+    from graphembedding.ops.walk import simulate_walks
+    from graphembedding.parallel.walks import DistributedWalker
 
     rng = np.random.default_rng(0)
     V = 400
@@ -822,12 +824,12 @@ def test_model_mesh_end_to_end(model_name, tmp_path):
     sharded (edge-partitioned engines) AND training sharded, end to
     end through the reference API, and clears the community /
     structural quality gate."""
-    from graphembedding_tpu.data.datasets import (
+    from graphembedding.data.datasets import (
         synthetic_flight,
         synthetic_wiki,
     )
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk, Node2Vec, Struc2Vec
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk, Node2Vec, Struc2Vec
 
     mesh = make_mesh((len(jax.devices()), 1))
     if model_name == "struc2vec":
@@ -857,9 +859,9 @@ def test_rowshard_prefetch_quality_gate():
     prefetched rows must score within a small margin of the EXACT
     synchronous rowshard run on the community test (measured cost of
     the one-step staleness at this config: ~0.04 micro-F1)."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.eval.classify import Classifier
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.eval.classify import Classifier
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                         seed=5)

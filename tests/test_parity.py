@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from graphembedding_tpu.data.datasets import synthetic_wiki
-from graphembedding_tpu.models import LINE, SDNE
-from graphembedding_tpu.models.sdne import mlp_activations, sdne_loss
-from graphembedding_tpu.parity import reference as ref
-from graphembedding_tpu.train.skipgram import sgns_block_chunk
+from graphembedding.data.datasets import synthetic_wiki
+from graphembedding.models import LINE, SDNE
+from graphembedding.models.sdne import mlp_activations, sdne_loss
+from graphembedding.parity import reference as ref
+from graphembedding.train.skipgram import sgns_block_chunk
 
 
 def small_ds():

@@ -93,9 +93,9 @@ def test_mock_mount_full_run(tmp_path, capsys, monkeypatch):
     root = _mock_mount(tmp_path / "ref")
     out = tmp_path / "PARITY_RUN"
     monkeypatch.chdir(tmp_path)
-    # main() exports GE_TPU_REFERENCE_ROOT for load_dataset; setenv
+    # main() exports GE_REFERENCE_ROOT for load_dataset; setenv
     # first so monkeypatch restores the var after the test
-    monkeypatch.setenv("GE_TPU_REFERENCE_ROOT", str(root))
+    monkeypatch.setenv("GE_REFERENCE_ROOT", str(root))
     rc = parity_check.main(
         ["--root", str(root), "--out", str(out), "--quick"]
     )
@@ -123,7 +123,7 @@ def test_mock_mount_copycheck_flags_real_overlap(tmp_path):
     """A reference file cloned from one of ours must be flagged."""
     root = _mock_mount(tmp_path / "ref")
     repo = os.path.dirname(os.path.abspath(parity_check.__file__))
-    ours = os.path.join(repo, "graphembedding_tpu", "ops", "alias.py")
+    ours = os.path.join(repo, "graphembedding", "ops", "alias.py")
     (tmp_path / "ref" / "ge" / "alias.py").write_text(
         open(ours).read()
     )
@@ -147,7 +147,7 @@ def test_make_parity_target_exists():
 
 
 @pytest.mark.skipif(
-    os.environ.get("GE_TPU_RUN_SUBPROCESS_TESTS", "1") != "1",
+    os.environ.get("GE_RUN_SUBPROCESS_TESTS", "1") != "1",
     reason="subprocess test disabled",
 )
 def test_cli_empty_mount_subprocess(tmp_path):

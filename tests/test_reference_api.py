@@ -17,7 +17,7 @@ import inspect
 import numpy as np
 import pytest
 
-from graphembedding_tpu import LINE, SDNE, DeepWalk, Node2Vec, Struc2Vec
+from graphembedding import LINE, SDNE, DeepWalk, Node2Vec, Struc2Vec
 
 
 def defaults_of(fn):

@@ -10,9 +10,9 @@ path.)"""
 import numpy as np
 import pytest
 
-import graphembedding_tpu as ge
-from graphembedding_tpu.data.datasets import synthetic_wiki
-from graphembedding_tpu.utils.vocab import (
+import graphembedding as ge
+from graphembedding.data.datasets import synthetic_wiki
+from graphembedding.utils.vocab import (
     partition_dict,
     partition_list,
     partition_num,
@@ -149,7 +149,7 @@ def test_full_reference_migration_path():
 
     import networkx as nx
 
-    from graphembedding_tpu.eval.classify import (
+    from graphembedding.eval.classify import (
         Classifier,
         read_node_label,
     )
@@ -184,7 +184,7 @@ def test_reference_alias_api():
     """`ge.alias`-signature shims: list-in/list-out build + single draw."""
     import numpy as np
 
-    from graphembedding_tpu.ops.alias import alias_sample, create_alias_table
+    from graphembedding.ops.alias import alias_sample, create_alias_table
 
     probs = [0.5, 0.3, 0.2]
     accept, alias = create_alias_table(probs)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from graphembedding_tpu.utils import most_similar, similarity
+from graphembedding.utils import most_similar, similarity
 
 
 def toy_embeddings():
@@ -53,7 +53,7 @@ def test_most_similar_matrix_input_and_errors():
 
 
 def test_most_similar_device_path_matches_numpy():
-    from graphembedding_tpu.utils import simquery as simmod
+    from graphembedding.utils import simquery as simmod
 
     rng = np.random.default_rng(1)
     V, D = 512, 16

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from graphembedding_tpu.train.skipgram import (
+from graphembedding.train.skipgram import (
     SkipGramConfig,
     SkipGramTrainer,
     corpus_counts,
@@ -196,7 +196,7 @@ def test_sgns_chunk_block_larger_than_corpus():
 
 
 def test_subsample_keep_probs_word2vec_rule():
-    from graphembedding_tpu.train.skipgram import subsample_keep_probs
+    from graphembedding.train.skipgram import subsample_keep_probs
 
     counts = np.array([500.0, 5.0, 0.0, 495.0])  # total 1000
     s = 1e-2
@@ -249,7 +249,7 @@ def test_neg_share_packs_trains():
 
 def test_device_prep_matches_host_builders():
     """_device_prep reproduces the numpy negative table + keep probs."""
-    from graphembedding_tpu.train.skipgram import (
+    from graphembedding.train.skipgram import (
         _device_prep,
         subsample_keep_probs,
     )
@@ -280,7 +280,7 @@ def test_device_prep_matches_host_builders():
 
 
 def test_inverse_cdf_table_edge_cases():
-    from graphembedding_tpu.train.skipgram import inverse_cdf_table
+    from graphembedding.train.skipgram import inverse_cdf_table
 
     # all-zero weights: uniform fallback
     t = np.asarray(inverse_cdf_table(jnp.zeros(4), 1 << 10))
@@ -295,7 +295,7 @@ def test_inverse_cdf_table_edge_cases():
 
 
 def test_subsample_walks_compacts_left():
-    from graphembedding_tpu.train.skipgram import subsample_walks
+    from graphembedding.train.skipgram import subsample_walks
 
     walks = jnp.array([[3, 7, 3, 5, -1], [7, 7, 7, 7, 7]], jnp.int32)
     # drop node 7 always, keep everything else always
@@ -309,7 +309,7 @@ def test_subsample_walks_compacts_left():
 
 
 def test_subsample_walks_statistics():
-    from graphembedding_tpu.train.skipgram import subsample_walks
+    from graphembedding.train.skipgram import subsample_walks
 
     rng = np.random.default_rng(0)
     walks = jnp.asarray(rng.integers(0, 2, (2000, 10)).astype(np.int32))
@@ -384,7 +384,7 @@ def test_plan_block_walks_policy():
     """Block policy: packing-rounded, tiny-corpus clamped, large-corpus
     upscaled (4x at >=128 blocks, 8x at >=256), never upscaled when
     the table dominates HBM (RESULTS.md round 4)."""
-    from graphembedding_tpu.train.skipgram import (
+    from graphembedding.train.skipgram import (
         SkipGramConfig,
         plan_block_walks,
     )
@@ -401,3 +401,51 @@ def test_plan_block_walks_policy():
     assert plan_block_walks(2_000_000, L, 1_000_000, cfg) == 8 * 4032
     # 10M-node table (10 GB > 6 GB budget): no upscale
     assert plan_block_walks(20_000_000, L, 10_000_000, cfg) == 4032
+
+
+def test_sgns_trace_classifies_block_grad_ops():
+    """The trace reduction attributes to the block gradients the HLO
+    ops of the `sgns_block_grads` scope and the fusions whose bodies
+    are mostly in it; fusions holding any such op bound it above."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from benchmarks.sgns_trace import classify_hlo_ops
+
+    scoped = 'metadata={op_name="jit(f)/sgns_block_grads/mul"}'
+    other = 'metadata={op_name="jit(f)/scatter-add"}'
+    hlo = (
+        "%fused_a (p: f32[4]) -> f32[4] {\n"
+        f"  ROOT %m = f32[4] multiply(%p, %p), {scoped}\n"
+        "}\n"
+        "%fused_b (p: f32[4]) -> f32[4] {\n"
+        f"  %n = f32[4] negate(%p), {scoped}\n"
+        f"  %s1 = f32[4] sine(%n), {other}\n"
+        f"  ROOT %s2 = f32[4] sine(%s1), {other}\n"
+        "}\n"
+        "ENTRY %main (x: f32[4]) -> f32[4] {\n"
+        "  %fusion.1 = f32[4] fusion(%x), kind=kLoop, calls=%fused_a\n"
+        "  %fusion.2 = f32[4] fusion(%fusion.1), kind=kLoop, "
+        "calls=%fused_b\n"
+        f"  ROOT %d = f32[4] add(%fusion.2, %x), {scoped}\n"
+        "}\n"
+    )
+    majority, anyone = classify_hlo_ops(hlo)
+    assert majority == {"m", "n", "fusion.1", "d"}
+    assert anyone == majority | {"fusion.2"}
+
+
+def test_sgns_trace_busy_time_is_interval_union():
+    """Busy time counts overlapping kernel intervals once."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from benchmarks.sgns_trace import _union_ns
+
+    assert _union_ns([]) == 0
+    assert _union_ns([(10, 20), (0, 5), (15, 30), (18, 25)]) == 25
+    assert _union_ns([(0, 10), (10, 12)]) == 12

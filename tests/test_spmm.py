@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from graphembedding_tpu.data.datasets import synthetic_wiki
-from graphembedding_tpu.graph import Graph
-from graphembedding_tpu.models import SDNE
-from graphembedding_tpu.ops.spmm import (
+from graphembedding.data.datasets import synthetic_wiki
+from graphembedding.graph import Graph
+from graphembedding.models import SDNE
+from graphembedding.ops.spmm import (
     adjacency_bcoo,
     laplacian_quadratic,
     sddmm,
@@ -90,7 +90,7 @@ def test_sdne_sparse_never_materializes_dense():
     import jax.numpy as jnp
     sparse_table = np.asarray(m.embedding_table)
     dense_table = np.asarray(
-        __import__("graphembedding_tpu.models.sdne",
+        __import__("graphembedding.models.sdne",
                    fromlist=["encode"]).encode(m.params, m.A)
     )
     np.testing.assert_allclose(sparse_table, dense_table, rtol=1e-4,
@@ -100,7 +100,7 @@ def test_sdne_sparse_never_materializes_dense():
 def test_sym_edges_no_double_count_for_undirected():
     """Undirected graphs already list both directions; symmetrization
     must not double weights (code-review regression)."""
-    from graphembedding_tpu.graph import Graph
+    from graphembedding.graph import Graph
 
     g = Graph(np.array([0, 1]), np.array([1, 2]), directed=False)
     src, dst, w, deg_w = sym_edges(g)

@@ -2,8 +2,8 @@ import jax
 import numpy as np
 import pytest
 
-from graphembedding_tpu.graph import Graph
-from graphembedding_tpu.ops.walk import (
+from graphembedding.graph import Graph
+from graphembedding.ops.walk import (
     csr_contains,
     node2vec_walks,
     node2vec_walks_rejection,
@@ -183,13 +183,10 @@ def test_simulate_walks_covers_all_nodes():
 
 
 def test_select_pq_kernel_heuristic():
-    """Auto-selection follows the measured r05 crossover
-    (benchmarks/pq_crossover_r05*.jsonl): exact through Dpad=384,
-    dense-membership rejection past it (both bias regimes — dense
-    membership removed the csr-gather cost that made the r4 thresholds
-    bias-dependent), csr membership when the nbr-id matrix overflows
-    the HBM budget."""
-    from graphembedding_tpu.ops.walk import select_pq_kernel
+    """Auto-selection: exact through Dpad=384, dense-membership
+    rejection past it (both bias regimes), csr membership when the
+    nbr-id matrix overflows the memory budget."""
+    from graphembedding.ops.walk import select_pq_kernel
 
     assert select_pq_kernel(20000, 8, 0.25, 4.0) == "exact"
     assert select_pq_kernel(20000, 300, 0.25, 4.0) == "exact"
@@ -206,7 +203,7 @@ def test_select_pq_kernel_heuristic():
     # keeps the flag; None resolves via the heuristic
     import networkx as nx
 
-    from graphembedding_tpu.models import Node2Vec
+    from graphembedding.models import Node2Vec
 
     g = nx.relabel_nodes(
         nx.path_graph(12), {i: str(i) for i in range(12)}

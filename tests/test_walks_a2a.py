@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphembedding_tpu.graph import Graph
-from graphembedding_tpu.parallel.mesh import make_mesh
-from graphembedding_tpu.parallel.walks import (
+from graphembedding.graph import Graph
+from graphembedding.parallel.mesh import make_mesh
+from graphembedding.parallel.walks import (
     DistributedWalker,
     bucket_by_dest,
     place_arrivals,
@@ -168,7 +168,7 @@ def test_place_arrivals_receiver_capacity_overflow():
 def test_a2a_engine_correctness():
     """Every recorded hop is a real edge, contiguous tokens, zero
     drops on a well-provisioned run, and full walker accounting."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
+    from graphembedding.data.datasets import synthetic_wiki
 
     ds = synthetic_wiki(num_nodes=200, num_classes=4, avg_degree=6,
                         seed=3)
@@ -199,7 +199,7 @@ def test_a2a_engine_correctness():
 
 
 def test_a2a_engine_distribution_matches_plain():
-    from graphembedding_tpu.data.datasets import synthetic_wiki
+    from graphembedding.data.datasets import synthetic_wiki
 
     ds = synthetic_wiki(num_nodes=200, num_classes=4, avg_degree=6,
                         seed=3)
@@ -302,8 +302,8 @@ def test_ragged_all_to_all_backend_probe():
 def test_deepwalk_model_a2a_exchange():
     """Model-level reach: DeepWalk(G, mesh=..., walk_exchange='a2a')
     runs the exact-exchange engine end to end."""
-    from graphembedding_tpu.data.datasets import synthetic_wiki
-    from graphembedding_tpu.models import DeepWalk
+    from graphembedding.data.datasets import synthetic_wiki
+    from graphembedding.models import DeepWalk
 
     ds = synthetic_wiki(num_nodes=120, num_classes=4, avg_degree=6,
                         seed=2)
@@ -338,7 +338,7 @@ def test_a2a_weighted_distribution():
 def test_a2a_multilayer_matches_replicated():
     """Multilayer walks through the exact exchange: visit distribution
     matches the replicated single-chip kernel; full accounting."""
-    from graphembedding_tpu.models.struc2vec import (
+    from graphembedding.models.struc2vec import (
         build_context_graph,
         build_layer_csr,
         multilayer_walks,
